@@ -4,8 +4,7 @@ The evaluator already traces relaxation factors (one compiled program
 serves every omega assignment of a structure, evaluator.structure_key).
 This module extends that to sweep counts: every maximal chain of
 consecutive diagonal-smoother sweeps (same smoother signature, same
-partitioning, same rhs — the exact chain `_peel_smoother_chain`
-recognizes) is padded to ``PAD_TO`` sweeps by inserting cycles with
+partitioning, same rhs) is padded to ``PAD_TO`` sweeps by inserting cycles with
 relaxation factor 0.0 at the chain's INNER end.  A zero-omega sweep is
 an exact identity (u + 0 * B^-1 r = u), so padded and unpadded programs
 compute bitwise-identical states for the real sweeps; individuals whose
@@ -14,14 +13,13 @@ their omega vectors distinguishing them (zeros in the padded slots).
 
 The reference analogue: one generated C++ binary serves exactly one
 individual (reference optimization/program.py:924); collapsing compiles
-across individuals is the point of the TPU batched-evaluation design
-(VERDICT r3 next-step idea, r4 next-step #7).
+across individuals is the point of the batched-evaluation design.
 
 Cost trade: the padded program executes every padded sweep (multiplied
 by zero), so a 1-sweep member pays 3 sweeps of device work inside a
-shared program — device solves batch to noise while compiles dominate
-evaluation wall time (BASELINE.md round 4: ~100% compile-bound), so the
-trade wins whenever any collapse happens.  Timing caveat recorded where
+shared program — compiles dominate evaluation wall time (3-12 s of
+compile against 0.1-0.8 s of run per individual on an H100, PERF.md), so
+the trade wins whenever any collapse happens.  Timing caveat recorded where
 used: ms/iteration measured on the canonical program is an upper bound
 for members with fewer real sweeps.
 """
@@ -31,17 +29,15 @@ from typing import List, Optional
 from ..ir import base, system
 from ..ir import partitioning as part
 
-#: pad every recognized chain of 1..PAD_TO sweeps up to exactly PAD_TO
-#: (matches compiler.lower._peel_smoother_chain max_sweeps, so the leg
-#: super-fusion planners fuse the padded chain exactly like a natural
-#: 3-sweep chain); longer chains are left alone and keep their natural
-#: count in the signature
+#: pad every recognized chain of 1..PAD_TO sweeps up to exactly PAD_TO;
+#: longer chains are left alone and keep their natural count in the
+#: signature
 PAD_TO = 3
 
 
 def _sweep_parts(cycle):
-    """(inverse, residual) if ``cycle`` is a diagonal-smoother sweep in
-    the `_peel_smoother_chain` shape, else None."""
+    """(inverse, residual) if ``cycle`` is a diagonal-smoother sweep
+    u + w * D^-1 (b - A u) over its own approximation, else None."""
     if not isinstance(cycle, base.Cycle):
         return None
     if cycle.partitioning not in (part.RedBlack, part.Single):

@@ -2,7 +2,7 @@
 
 The reference round-trips every evolved cycle through a textual DSL —
 `code_generation/exastencils.py:684-925` emits ExaSlang L3 and
-`code_generation/layer4.py:1-201` pretty-prints an L4 AST.  The TPU build
+`code_generation/layer4.py:1-201` pretty-prints an L4 AST.  This framework
 lowers IR straight to jitted JAX programs, so there is no DSL artifact; this
 module provides the equivalent *inspectable* form: a statement-oriented
 listing of the multigrid program a cycle expression denotes, in evaluation

@@ -1,15 +1,15 @@
-"""Deep-convergence solves on f32-only TPUs: double-float iterative
+"""Deep-convergence solves with f32 cycles: double-float iterative
 refinement around the native multigrid cycle.
 
 The reference validates solvers to 1e-12 (linear) / 1e-10 (FAS) relative
 residual in f64 generated C++ (reference
 scripts/evaluate_reference_solver.py:15-47, FAS_2D_Basic knowledge file).
-A TPU V-cycle runs f32 and stalls at ~1e-6/1e-7 relative — the evaluator
+An f32 V-cycle stalls at ~1e-6/1e-7 relative — the evaluator
 extrapolates below that via log(eps)/log(rho)
 (evaluation/evaluator.py).  This module closes the loop ON HARDWARE:
 
 * the *solution* is carried as a double-float pair ``u = u_hi + u_lo``
-  (ops/df64: ~48-bit significand, pure f32 VPU arithmetic);
+  (ops/df64: ~48-bit significand, pure f32 arithmetic);
 * each outer step measures the df64 residual ``r = b - A u`` exactly
   enough to see 1e-14, then solves the *correction* equation
   ``A e = hi(r)`` with a handful of native f32 V-cycles;
@@ -160,12 +160,6 @@ def make_refined_solver(lowered: LoweredCycle, *,
     ``inner_cycles`` (rho^m < eps is wasted work: m ~ 2-3 for bf16 at
     rho ~ 0.05).  The residual is always measured in df64, so the outer
     loop is exact regardless of the inner precision.
-
-    (History, TPU 2026-08-21: all-bf16 in-kernel arithmetic diverged on
-    hardware — x100 residual growth per outer step while interpret mode
-    was fine.  The Pallas kernels now load storage dtype but COMPUTE in
-    f32 with f32 SMEM scalars — bf16 halves HBM traffic, the VPU math
-    stays exact — and the bf16+Pallas path converges on chip.)
     """
     st = _constant_scalar_stencil(lowered)
     radius = st.max_offsets

@@ -17,16 +17,13 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from functools import partial
-from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
 
-from .lower import (LoweredCycle, _Lowering, _col_prolong, _col_restrict,
-                    extract_fine_leg_plan, make_coarse_tail)
+from .lower import LoweredCycle, _Lowering
 
 
 def residual_norm_fn(operator):
@@ -76,25 +73,9 @@ def make_solver(lowered: LoweredCycle, max_iterations: int = 100,
 def make_cycle_loop(lowered: LoweredCycle, n_cycles: int):
     """Build a jitted ``run(u0, b, omegas) -> u`` applying ``n_cycles``
     full cycles (no convergence checks — production solve loops and the
-    throughput benchmark).
+    throughput benchmark)."""
 
-    When the cycle has the canonical fused-V structure, consecutive
-    iterations share one Pallas pass at the finest level: the up-leg of
-    cycle k (prolongation + correction + post-smooth) fuses with the
-    down-leg of cycle k+1 (pre-smooth + residual + restriction), saving a
-    full read-u/read-b/write-u round trip per iteration
-    (ops/pallas/transfer.upleg_downleg_fused).  Exactly equivalent to
-    ``n_cycles`` applications of ``lowered.step`` up to float
-    reassociation; any unsupported structure falls back to that form.
-    """
-    from ..config import config, pallas_enabled, pallas_interpret
-    from ..ops.pallas import transfer as ptransfer
-
-    plan = extract_fine_leg_plan(lowered.expression) \
-        if config.loop_fusion and pallas_enabled() else None
-    tail = make_coarse_tail(lowered, plan) if plan is not None else None
-
-    def run_generic(u_fields, b_fields, omegas):
+    def run(u_fields, b_fields, omegas):
         def body(u, _):
             out = lowered.step(u, b_fields, omegas)
             # keep the carry in the caller's dtype: low-precision (bf16)
@@ -104,70 +85,6 @@ def make_cycle_loop(lowered: LoweredCycle, n_cycles: int):
                 None
         u, _ = lax.scan(body, u_fields, None, length=n_cycles)
         return u
-
-    def run(u_fields, b_fields, omegas):
-        u = u_fields[0]
-        if (plan is None or len(u_fields) != 1
-                or not ptransfer.supports(u)
-                or not (1 <= len(plan.om_pre_ids) <= 3)
-                or not (1 <= len(plan.om_post_ids) <= 3)):
-            return run_generic(u_fields, b_fields, omegas)
-        from ..config import fused_cols_enabled
-        fused_cols = fused_cols_enabled()
-        interp = pallas_interpret()
-        b = b_fields[0]
-        m = u.shape[1]
-        oms_pre = [omegas[i] for i in plan.om_pre_ids]
-        oms_post = [omegas[i] for i in plan.om_post_ids]
-        om_cgc = omegas[plan.om_cgc_id]
-
-        if fused_cols:
-            # column transfers live inside the leg kernels; the loop
-            # carries the raw coarse correction e (nc, mc)
-            def coarse(rc):
-                return tail(rc, u_fields, b_fields, omegas).astype(u.dtype)
-
-            u1, rc = ptransfer.presmooth_residual_restrict(
-                u, b, oms_pre, plan.vals, plan.r_taps, interpret=interp)
-
-            def body(carry, _):
-                u_k, e = carry
-                u2, rc2 = ptransfer.upleg_downleg_col(
-                    u_k, e, b, [om_cgc] + oms_post + oms_pre, plan.vals,
-                    plan.p_taps, plan.r_taps, interpret=interp)
-                return (u2, coarse(rc2)), None
-
-            (u_k, e), _ = lax.scan(body, (u1, coarse(rc)), None,
-                                   length=n_cycles - 1)
-            out = ptransfer.prolong_correct_postsmooth_col(
-                u_k, e, b, [om_cgc] + oms_post, plan.vals, plan.p_taps,
-                interpret=interp)
-            return (out,)
-
-        def coarse(rr):
-            rc = _col_restrict(rr, plan.r_taps[1], m)
-            e = tail(rc, u_fields, b_fields, omegas)
-            # cast back: the tail's f32 coefficients promote bf16 states,
-            # and the fused fine-level kernel wants uniform input dtype
-            return _col_prolong(e, plan.p_taps[1], m).astype(u.dtype)
-
-        u1, rr = ptransfer.presmooth_residual_rowrestrict(
-            u, b, oms_pre, plan.vals, plan.r_taps[0], interpret=interp)
-        c_half = coarse(rr)
-
-        def body(carry, _):
-            u_k, ch = carry
-            u2, rr2 = ptransfer.upleg_downleg_fused(
-                u_k, ch, b, [om_cgc] + oms_post + oms_pre, plan.vals,
-                plan.p_taps[0], plan.r_taps[0], interpret=interp)
-            return (u2, coarse(rr2)), None
-
-        (u_k, ch), _ = lax.scan(body, (u1, c_half), None,
-                                length=n_cycles - 1)
-        out = ptransfer.prolong_correct_postsmooth(
-            u_k, ch, b, [om_cgc] + oms_post, plan.vals, plan.p_taps[0],
-            interpret=interp)
-        return (out,)
 
     return jax.jit(run)
 

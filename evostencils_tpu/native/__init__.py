@@ -2,8 +2,8 @@
 
 The reference relies on external native systems for its numeric and
 analysis hot paths (ExaStencils-generated C++ solvers, the C++ LFA Lab
-library — SURVEY.md §2.3).  The TPU build keeps device compute in
-XLA/Pallas and implements the host-side native pieces here, built
+library — SURVEY.md §2.3).  This framework keeps device compute in
+XLA and implements the host-side native pieces here, built
 on demand with g++ and loaded through ctypes (no pybind11 in the image).
 """
 

@@ -4,10 +4,10 @@
 // straight-line program over complex matrices, run independently per
 // sampled frequency (OpenMP across frequencies), with BLAS zgemm for
 // products, LAPACK zgetrf/zgetri for inverses and zgeev for the final
-// spectral radius.  This is the TPU build's counterpart of the reference's
+// spectral radius.  This is the framework's counterpart of the reference's
 // C++ LFA Lab library (reference model_based_prediction/convergence.py
 // drives it through SWIG); here the host-side analysis hot path is native
-// while device compute stays in XLA/Pallas.
+// while device compute stays in XLA.
 //
 // Storage is column-major (LAPACK convention).  Instructions are fixed
 // 8-int64 records: [op, out, a, b, rows, cols, payload_off, payload_len];

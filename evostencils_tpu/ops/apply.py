@@ -4,7 +4,7 @@ Fields live on the *interior* of the grid (shape == grid.size); the implicit
 Dirichlet-0 boundary ring is materialized via zero padding inside the kernel.
 A constant-stencil application lowers to a handful of static slices of one
 padded array plus fused multiply-adds — XLA fuses this into a single
-memory-bound sweep, which is the right shape for the TPU VPU.  Variable and
+memory-bound sweep.  Variable and
 periodic coefficients become elementwise multiplies with materialized
 coefficient fields, fused into the same sweep.
 
@@ -298,11 +298,11 @@ def constant_stencil_field(stencil: Stencil, shape) -> StencilField:
 # ---------------------------------------------------------------------------
 # Coarse interior point i_c sits at fine interior index 2*i_c + 1.
 #
-# TPU note: strided slices / scatters (u[1::2]) lower to pathologically slow
-# lane shuffles on TPU.  Transfers are instead expressed as per-axis banded
-# *matmuls* (separable stencils — all gallery transfers are tensor products),
-# which run on the MXU at effectively zero cost next to the smoothing sweeps;
-# non-separable stencils fall back to a strided conv, also MXU-native.
+# Separable radius-1 transfers (all gallery transfers are tensor products)
+# run as per-axis three-tap strided slices (axis_restrict_3tap /
+# axis_prolong_3tap); other separable stencils as per-axis banded
+# contractions (_axis_contract); non-separable ones apply the stencil and
+# subsample.
 
 def separable_factors(stencil: Stencil):
     """Factor a stencil into per-axis 1D weight vectors, or None.
@@ -377,29 +377,17 @@ def _prolongation_axis_matrix(weights, radius, n_fine, n_coarse):
     return m
 
 
-#: grids at or above this many elements get an optimization barrier
-#: between the per-axis contractions (and before the first one): XLA
-#: otherwise fuses the whole chain PLUS its elementwise producers into a
-#: single kernel whose scoped-VMEM working set can exceed the 16M TPU
-#: limit — observed as a compile-time "Ran out of memory in memory space
-#: vmem ... scoped allocation 24.73M" on the 2047² split-complex
-#: Helmholtz, whose variable-coefficient residual (dozens of coefficient
-#: arrays) fused into the 1023→511 transfer dot (2026-08-21).  Small
-#: tail grids keep full fusion.
-_CONTRACT_BARRIER_MIN_ELEMS = 512 * 512
-
-
 def _axis_contract(u, matrices):
     """Apply one banded matrix per axis: out = (M_0 x M_1 x ...) u."""
     out = u
-    big = out.size >= _CONTRACT_BARRIER_MIN_ELEMS
     for k, m in enumerate(matrices):
         mj = jnp.asarray(m, out.dtype) if not np.iscomplexobj(m) \
             else jnp.asarray(m, jnp.promote_types(out.dtype, jnp.complex64))
         out = out.astype(mj.dtype)
-        if big:
-            out = jax.lax.optimization_barrier(out)
-        out = jnp.tensordot(mj, out, axes=(1, k))
+        # HIGHEST: an f32 contraction may otherwise run in TF32 (~3 decimal
+        # digits) on the GPU, which would perturb every transferred residual
+        out = jnp.tensordot(mj, out, axes=(1, k),
+                            precision=jax.lax.Precision.HIGHEST)
         # tensordot puts the contracted axis first; rotate it back to k
         out = jnp.moveaxis(out, 0, k)
     return out
@@ -417,9 +405,7 @@ def axis_restrict_3tap(u, axis, weights):
     `_restriction_axis_matrix` convention, fine j = 2i+1+o).
 
     Equivalent to the dense axis matmul but O(n) work per output instead
-    of O(n_fine): at fine levels the dense contraction is MXU-bound
-    (~2*nc*nf*batch FLOPs) while this form is three strided slices fused
-    into one elementwise pass.
+    of O(n_fine): three strided slices fused into one elementwise pass.
     """
     nf = u.shape[axis]
     nc = (nf - 1) // 2
@@ -445,7 +431,7 @@ def axis_prolong_3tap(u, axis, weights, n_fine):
     (the `_prolongation_axis_matrix` convention, fine j = 2i+1+o):
     fine odd rows ``2i+1 <- w[1]*u[i]``, fine even rows
     ``2i <- w[0]*u[i] + w[2]*u[i-1]`` — built by interleaving the even
-    and odd sub-lattices instead of a dense MXU scatter-matmul."""
+    and odd sub-lattices instead of a dense scatter-matmul."""
     nc = u.shape[axis]
     assert n_fine == 2 * nc + 1
     dtype = _transfer_dtype(weights, u.dtype)
@@ -475,17 +461,12 @@ def restrict(stencil: Stencil, u_fine):
     fac = separable_factors(stencil)
     if fac is not None:
         vectors, radii = fac
-        from ..config import banded_transfers_enabled
-        if banded_transfers_enabled() and all(r == 1 for r in radii):
+        from ..config import config
+        if config.banded_transfers and all(r == 1 for r in radii):
             out = u_fine
             for k, v in enumerate(vectors):
                 out = axis_restrict_3tap(out, k, tuple(v))
             return out
-        # NOTE: this dense banded-matrix contraction is what lowered.step
-        # actually pays for transfers (config.column_transfers only reaches
-        # the fused-loop helpers lower._col_restrict/_col_prolong — A/B'd
-        # 2026-08-21, identical checksums).  A bf16 contraction here is
-        # worth ~0.15 ms/cycle on the 4095^2 headline (BASELINE.md).
         mats = [_restriction_axis_matrix(v, r, n, m)
                 for v, r, n, m in zip(vectors, radii, nf, nc)]
         return _axis_contract(u_fine, mats)
@@ -508,8 +489,8 @@ def prolong(stencil: Stencil, u_coarse, fine_shape: Tuple[int, ...]):
         fac = separable_factors(stencil)
         if fac is not None:
             vectors, radii = fac
-            from ..config import banded_transfers_enabled
-            if banded_transfers_enabled() and all(r == 1 for r in radii) \
+            from ..config import config
+            if config.banded_transfers and all(r == 1 for r in radii) \
                     and all(n == 2 * m + 1
                             for n, m in zip(fine_shape, nc)):
                 out = u_coarse

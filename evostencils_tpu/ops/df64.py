@@ -1,17 +1,16 @@
-"""Double-float ("df64") arithmetic: ~2x-f32-precision on f32-only TPUs.
+"""Double-float ("df64") arithmetic: ~2x f32 precision from f32 words.
 
-TPUs have no native f64 datapath; the reference validates its solvers to
-1e-12 relative residual in f64 C++ (reference
-scripts/evaluate_reference_solver.py:15-47).  To reach the same depth on
-TPU hardware we represent a value as an unevaluated sum ``hi + lo`` of two
-f32 words (|lo| <= ulp(hi)/2), giving ~48 bits of significand — enough to
+The reference validates its solvers to 1e-12 relative residual in f64 C++
+(reference scripts/evaluate_reference_solver.py:15-47).  To reach the same
+depth while the cycles run in f32 we represent a value as an unevaluated
+sum ``hi + lo`` of two f32 words (|lo| <= ulp(hi)/2), giving ~48 bits of significand — enough to
 *measure* residuals at 1e-12 relative while the multigrid correction solve
 stays in fast native f32 (compiler/refine.py iterative refinement).
 
 Algorithms: Knuth two-sum, Dekker/Veltkamp split + two-product (no FMA
 dependency — XLA does not guarantee fused multiplies), Bailey double-float
 add/mul.  All ops are elementwise jnp expressions: they jit, vmap, and run
-on the VPU with no special-casing.
+on any device with no special-casing.
 """
 
 from __future__ import annotations

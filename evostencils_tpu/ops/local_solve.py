@@ -5,7 +5,7 @@ per-block Gaussian elimination in generated C++ (reference
 code_generation/exastencils.py:659-925).  Here the block structure is
 precomputed at trace time (numpy) into a batched inverse tensor, and the
 on-device application is one einsum over all blocks — a batched small
-matmul, which maps directly onto the TPU vector/matrix units.
+matmul.
 
 Block convention: blocks tile the *node* index space ``[0, n+1]`` per axis
 in chunks of the block size; interior point ``i`` is node ``i+1``
@@ -20,6 +20,7 @@ from functools import reduce
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from ..stencils import periodic
@@ -137,13 +138,16 @@ class BlockSolvePlan:
             xp = jnp.transpose(xp, perm).reshape(*self.nblocks, B)
             blocks.append(xp)
         xb = jnp.concatenate(blocks, axis=-1)  # (*nblocks, m*B)
-        # keep the field dtype (f64 einsums are emulated and slow on TPU);
-        # promote only for complex inverses over real fields
+        # keep the field dtype, so an f32 smoother stays f32; promote only
+        # for complex inverses over real fields.  HIGHEST: an f32 einsum may
+        # otherwise run in TF32 (~3 decimal digits) on the GPU, which turns
+        # the exact block solve into an approximate one
         dtype = xb.dtype
         if np.iscomplexobj(self.inverse):
             dtype = jnp.promote_types(dtype, jnp.complex64)
         inv = jnp.asarray(self.inverse, dtype=dtype)
-        yb = jnp.einsum("...ab,...b->...a", inv, xb.astype(dtype))
+        yb = jnp.einsum("...ab,...b->...a", inv, xb.astype(dtype),
+                        precision=jax.lax.Precision.HIGHEST)
         outs = []
         for i in range(self.m):
             y = yb[..., i * B:(i + 1) * B]

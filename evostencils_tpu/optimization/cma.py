@@ -4,7 +4,7 @@ Native replacement for the DEAP ``cma.Strategy`` the reference drives in
 its transfer-weight tuner (reference optimization/intergrid_transfer.py:
 126-131).  Standard (mu/mu_w, lambda)-CMA-ES with cumulative step-size
 adaptation and rank-one + rank-mu covariance updates; ask/tell interface so
-the caller can evaluate a whole generation in one batched TPU call.
+the caller can evaluate a whole generation in one batched device call.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """CMA-ES tuning of restriction/prolongation stencil weights.
 
-TPU-native counterpart of the reference's transfer-operator weight
+Counterpart of the reference's transfer-operator weight
 optimization (reference optimization/intergrid_transfer.py:10-144).  The
 reference generates one parametrized C++ solver, then *recompiles the C++
 for every CMA candidate* and measures the convergence factor.  Here the

@@ -10,7 +10,7 @@ solver of the next finer run.
 
 Differences by design:
 * evaluation is the batched native backend (evaluation/evaluator.py), not
-  subprocess codegen — whole structure groups evaluate in one TPU program;
+  subprocess codegen — whole structure groups evaluate in one device program;
 * distribution rides host-level collectives over the JAX runtime
   (parallel/comm.py) instead of mpi4py: populations stay replicated
   (every rank runs the identical rng/selection stream — pass the same
@@ -144,8 +144,8 @@ class Optimizer:
                     problem.dimension, samples_per_axis=8)
             if performance_evaluator is None:
                 from ..prediction.performance import (PerformanceEvaluator,
-                                                      TPU_V5E)
-                performance_evaluator = PerformanceEvaluator(TPU_V5E)
+                                                      H100_SXM)
+                performance_evaluator = PerformanceEvaluator(H100_SXM)
         self.convergence_evaluator = convergence_evaluator
         self.performance_evaluator = performance_evaluator
         self.rng = rng or random.Random()

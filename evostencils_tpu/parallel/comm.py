@@ -1,6 +1,6 @@
 """Host-level collectives for population-parallel evolution.
 
-TPU-native replacement for the reference's optimizer-tier mpi4py layer
+Replacement for the reference's optimizer-tier mpi4py layer
 (reference optimization/program.py:285-310: ``allgather``/``gather``/
 ``allreduce``/``barrier`` wrappers that no-op without a communicator, used
 for offspring exchange, fitness-cache replication, timing reduction and
@@ -185,13 +185,13 @@ def initialize_multihost(coordinator_address: str = None,
     communicator (replaces the reference's `mpiexec` + mpi4py bootstrap,
     reference scripts/optimize.py:39-48).
 
-    With no arguments, jax.distributed auto-detects the cluster from the
-    TPU environment (megascale/GCE metadata); explicit arguments support
-    manual CPU/GPU clusters."""
+    With no arguments, jax.distributed auto-detects the cluster where its
+    environment describes one; elsewhere (as on a single GPU host) pass
+    ``coordinator_address``, ``num_processes`` and ``process_id``."""
     import jax
     try:
         # CPU clusters need an explicit cross-process collectives backend
-        # (TPU/GPU ride ICI/NCCL natively); harmless if already set
+        # (GPUs use NCCL natively); harmless if already set
         if jax.config.jax_platforms and \
                 jax.config.jax_platforms.startswith("cpu"):
             jax.config.update("jax_cpu_collectives_implementation", "gloo")

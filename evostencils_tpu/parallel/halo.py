@@ -1,12 +1,13 @@
 """Explicit shard_map halo-exchange smoother pipeline.
 
-TPU-native replacement for the reference's domain-decomposed solver tier
+Replacement for the reference's domain-decomposed solver tier
 (ExaStencils blocks/fragments with ghost-layer ``communicate`` statements,
 lib/domain_onePatch.knowledge:1-8, FAS_2D_Basic_template.exa4:7-10): the
 grid is block-partitioned over a 2D device mesh and each smoother sweep
 exchanges a one-cell halo with its mesh neighbors via ``lax.ppermute``
-over ICI.  2D grids shard both axes; 3D grids shard their first two axes
-(four face halos) and keep the last — the TPU vector-lane axis — local.
+over the device interconnect (NVLink between the cards of one host).  2D
+grids shard both axes; 3D grids shard their first two axes (four face
+halos) and keep the last, contiguous axis local.
 
 Overlap structure: the bulk of the stencil contraction only reads the local
 block, so it carries no data dependence on the ppermute results — XLA's
@@ -14,7 +15,7 @@ latency-hiding scheduler runs the halo transfers concurrently with the
 interior compute, and only the edge-row/column fix-up waits on them.
 Devices at the physical boundary receive zeros from the (absent) neighbor,
 which is exactly the homogeneous-Dirichlet ghost convention of the
-XLA/Pallas paths.
+single-device path.
 
 Used by the cycle compiler when ``config.shard_map_mesh`` is set: fine
 levels whose local blocks are at least ``config.shard_min_local_size`` run
@@ -47,8 +48,8 @@ def supports(mesh: Mesh, u) -> bool:
     """Sharded sweeps need a 2D/3D grid (real or complex — XLA lowers
     complex collectives to (re, im) pairs) with mesh axes named x/y and
     a large-enough local block (coarse levels run replicated).  3D grids
-    shard their first two axes over the mesh; the last (vector-lane) axis
-    stays local — splitting it would fight the TPU register layout."""
+    shard their first two axes over the mesh; the last, contiguous axis
+    stays local."""
     from ..config import config
     if u.ndim not in (2, 3):
         return False
@@ -70,7 +71,7 @@ def _half_sweep(u, b, om, *, vals, dinv, parity, n_global, local_shape,
                 mesh_shape):
     """One masked damped-Jacobi half-sweep on the local block (inside
     shard_map).  parity: -1 full sweep, 0 red, 1 black (global node
-    parity, matching ops/pallas/rbgs.py).  Coefficients in ``vals`` (and
+    parity, matching compiler/lower.red_black_masks).  Coefficients in ``vals`` (and
     ``dinv``) may be python scalars — real or complex constant stencils —
     or local (nl, ml) blocks of sharded coefficient fields
     (variable-coefficient operators)."""
@@ -118,7 +119,7 @@ def _half_sweep_3d(u, b, om, *, vals, dinv, parity, n_global, local_shape,
     """One masked damped-Jacobi half-sweep of a 7-point stencil on the
     local 3D block (inside shard_map).  The first two grid axes shard
     over mesh axes x/y; the last axis is local, so only four halo faces
-    exchange.  vals order matches ops/pallas/rbgs3d.seven_point_values:
+    exchange.  vals order matches ops/stencil_values.seven_point_values:
     (center, -x, +x, -y, +y, -z, +z)."""
     c0, cxm, cxp, cym, cyp, czm, czp = vals
     nl, ml, kl = local_shape
@@ -205,7 +206,7 @@ def sweep(mesh: Mesh, u, b, om, vals, dinv, *, red_black: bool):
 
 def sweep_var(mesh: Mesh, u, b, om, stack, *, red_black: bool):
     """Variable-coefficient smoother sweep under the halo pipeline: the
-    (5, n, m) coefficient stack (ops/pallas/rbgs_var.five_point_stack
+    (5, n, m) coefficient stack (ops/stencil_values.five_point_stack
     order: center, -x, +x, -y, +y) shards exactly like u, so each
     device's stencil coefficients are local and only u's one-cell halo
     rides the ppermutes."""
@@ -316,7 +317,7 @@ def sweep_sys(mesh: Mesh, fields, b_fields, om, coeffs, minv, *,
               red_black: bool):
     """Coupled system smoother sweep (FxF constant 9-point entries, e.g.
     linear elasticity) under the halo pipeline.  ``coeffs[i][j]`` is the
-    9-tuple of entry (i,j) in ops/pallas/rbgs_sys.NINE_OFFSETS order;
+    9-tuple of entry (i,j) in ops/stencil_values.NINE_OFFSETS order;
     ``minv`` the constant FxF point-solve matrix."""
     nx, ny = _mesh_shape_2d(mesh)
     n_global = fields[0].shape

@@ -1,10 +1,10 @@
 """Device-mesh utilities: spatial grid sharding + population sharding.
 
-TPU-native replacement for both MPI tiers of the reference
+Replacement for both MPI tiers of the reference
 (SURVEY.md §5 'Distributed communication backend'):
 * solver-level domain decomposition (ExaStencils blocks/fragments with
   ghost-layer `communicate`) becomes XLA GSPMD sharding of the grid axes —
-  the partitioner inserts halo exchanges (collective-permute over ICI) for
+  the partitioner inserts halo exchanges (collective-permute) for
   the shifted-slice stencil reads automatically;
 * optimizer-level population parallelism (mpi4py allgather) becomes a
   batched leading axis sharded over the mesh.

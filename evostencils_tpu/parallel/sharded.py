@@ -5,7 +5,7 @@ XLA shardings at jit boundaries require axis sizes divisible by the mesh.
 ``sharded_step`` therefore exposes a padded public layout (next multiple of
 the mesh axes) and crops/re-pads inside the jitted program; the SPMD
 partitioner keeps all intermediates distributed and inserts the halo
-exchanges for stencil shifts over ICI.
+exchanges for stencil shifts.
 
 This is the GSPMD tier of the distribution design (SURVEY.md §7.5); the
 explicitly overlapped shard_map/ppermute halo pipeline builds on top of it.

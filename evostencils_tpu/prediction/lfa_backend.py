@@ -9,8 +9,8 @@ backend calls; two interchangeable backends execute them:
 * :class:`NativeLfaBackend` (native/) — records the same calls as a compact
   instruction tape and executes it in the C++ engine
   (native/lfa_engine.cpp): per-frequency sequential execution, OpenMP over
-  frequencies, BLAS zgemm / LAPACK zgetri+zgeev.  This is the TPU-native
-  build's counterpart of the reference's native LFA Lab library
+  frequencies, BLAS zgemm / LAPACK zgetri+zgeev.  This is the framework's
+  counterpart of the reference's native LFA Lab library
   (reference model_based_prediction/convergence.py:1-22 drives it via
   SWIG + a crash-isolation child process).
 

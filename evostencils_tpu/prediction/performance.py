@@ -6,7 +6,7 @@ Mirrors the reference's model-based runtime estimate
 (model_based_prediction/performance.py:36-148) including per-application
 Gaussian-elimination costs for collective/block smoothers (:240-248), but
 parameterized by a machine model so the same cycle can be priced for the
-reference's 6-core AVX2 CPU (scripts/optimize.py:79-84) or a TPU chip.
+reference's 6-core AVX2 CPU (scripts/optimize.py:79-84) or a GPU.
 """
 
 from __future__ import annotations
@@ -40,12 +40,28 @@ class MachineModel:
 #: 16 FLOP/cycle * 6 cores * 2.6 GHz, 45.8 GB/s DRAM, 8-byte words.
 REFERENCE_CPU = MachineModel("reference-cpu-avx2", 16 * 6 * 2.6e9, 45.8e9, 8)
 
-#: TPU v5e single chip: ~197 TFLOP/s bf16 MXU (f32 VPU lower, stencils are
-#: bandwidth-bound anyway), 819 GB/s HBM, 4-byte words for f32.
-TPU_V5E = MachineModel("tpu-v5e", 197e12, 819e9, 4)
+#: NVIDIA H100 SXM (NVIDIA's data sheet, at the 700 W power limit):
+#: 67 TFLOP/s fp32 outside the tensor cores, 3.35 TB/s HBM3, 4-byte words
+#: for the f32 cycles that run on it.
+H100_SXM = MachineModel("nvidia-h100-sxm", 67e12, 3.35e12, 4)
 
-#: TPU v5p single chip: 459 TFLOP/s bf16, 2765 GB/s HBM.
-TPU_V5P = MachineModel("tpu-v5p", 459e12, 2765e9, 4)
+#: peak tables of the devices this program measures on, keyed by
+#: ``jax.Device.device_kind``
+_MACHINES_BY_DEVICE_KIND = {
+    "NVIDIA H100 80GB HBM3": H100_SXM,
+}
+
+
+def machine_for_device_kind(kind: str) -> MachineModel:
+    """Peak table of a device, by its ``device_kind``.  An unknown device
+    is an error: a measured time divided by another device's peak is no
+    roofline share."""
+    try:
+        return _MACHINES_BY_DEVICE_KIND[kind]
+    except KeyError:
+        raise ValueError(
+            f"no machine model for device kind {kind!r}; known: "
+            f"{sorted(_MACHINES_BY_DEVICE_KIND)}") from None
 
 
 def _points(grid) -> int:
@@ -71,7 +87,7 @@ def _stencil_entries(op) -> float:
 class PerformanceEvaluator:
     """Estimate one cycle application's runtime on a machine model."""
 
-    def __init__(self, machine: MachineModel = TPU_V5E):
+    def __init__(self, machine: MachineModel):
         self.machine = machine
 
     def estimate_runtime(self, expr: base.Expression) -> float:

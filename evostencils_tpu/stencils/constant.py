@@ -8,7 +8,7 @@ translation-invariant linear operator on a structured grid:
 This module provides the closed algebra over such stencils — addition,
 scaling, composition, transposition, triangular/diagonal splits — that the
 multigrid IR uses to derive smoothers and Galerkin-style operator products
-symbolically before anything is lowered to TPU kernels.
+symbolically before anything is lowered to device programs.
 
 Reference parity: evostencils/stencils/constant.py (semantics only; this
 implementation is dict-normalized, hashable and supports complex values).

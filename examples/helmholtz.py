@@ -20,7 +20,13 @@ import random
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
+EVO_OUTPUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                          "evo_output")
+
+
 def main():
+    from evostencils_tpu.config import enable_persistent_compilation_cache
+    enable_persistent_compilation_cache()
     max_level = int(os.environ.get("ES_LEVELS", 6))
     gens = int(os.environ.get("ES_GENS", 5))
     mu = int(os.environ.get("ES_MU", 4))
@@ -64,7 +70,8 @@ def main():
                              k=2 * K_DEFAULT)]
     opt = Optimizer(problem, evaluator=evaluator,
                     robustness_problems=variants,
-                    checkpoint_directory_path="/tmp/es_checkpoints_helmholtz",
+                    checkpoint_directory_path=os.path.join(
+                        EVO_OUTPUT, "helmholtz"),
                     rng=random.Random(0))
     result = opt.evolutionary_optimization(
         mu_=mu, lambda_=mu, population_initialization_factor=2,
@@ -80,7 +87,8 @@ def main():
     for factor in (1, 2, 4):
         variant = helmholtz_2d(max_level=max_level, min_level=3,
                                k=factor * K_DEFAULT)
-        opt_v = Optimizer(variant, checkpoint_directory_path="/tmp/es_hh")
+        opt_v = Optimizer(variant, checkpoint_directory_path=os.path.join(
+            EVO_OUTPUT, "helmholtz_variant"))
         try:
             _, res_v = \
                 opt_v.generate_and_evaluate_program_from_grammar_representation(

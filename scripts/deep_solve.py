@@ -1,6 +1,6 @@
 """Deep-convergence validation on hardware: df64 iterative refinement.
 
-Runs the reference's deep-residual protocol ON THE DEVICE (TPU or CPU):
+Runs the reference's deep-residual protocol ON THE DEVICE:
 - 2D Poisson to 1e-12 relative residual (reference
   scripts/evaluate_reference_solver.py f64 protocol);
 - FAS_2D_Basic to 1e-10 relative residual (reference FAS knowledge file);
@@ -9,7 +9,7 @@ native f32 V-cycle corrections), residual norms measured in f64 on host.
 
 Also cross-checks the f32 evaluator's log(eps)/log(rho) extrapolation
 (evaluation/evaluator.py) against the actually-measured deep iteration
-counts.  Results go into BASELINE.md "deep convergence" rows.
+counts.
 """
 
 import argparse
@@ -33,8 +33,8 @@ def main():
     import numpy as np
     import jax
     import jax.numpy as jnp
-    cache = str(pathlib.Path(__file__).resolve().parents[1] / ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache)
+    from evostencils_tpu.config import enable_persistent_compilation_cache
+    enable_persistent_compilation_cache()
 
     from evostencils_tpu.compiler.cycles import v_cycle, fas_v_cycle
     from evostencils_tpu.compiler.lower import lower_cycle
@@ -75,9 +75,7 @@ def main():
           f"measured over 4 cycles)", file=sys.stderr)
 
     # ---- same solve with bf16 inner cycles (mixed-precision MG) -----------
-    # the Pallas kernels store bf16 but compute f32 in-VMEM (all-bf16
-    # kernel arithmetic diverged on hardware, fixed 2026-08-21), so the
-    # bf16 path runs the same fused kernels at half the HBM bytes
+    # bf16 storage moves half the bytes of f32 per cycle
     bf_solve = make_refined_solver(lowered, inner_cycles=3, max_outer=16,
                                    target_reduction=1e-12,
                                    inner_dtype=jnp.bfloat16)

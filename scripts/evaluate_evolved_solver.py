@@ -32,6 +32,8 @@ def main():
 
     import numpy as np
     from optimize import get_problem
+    from evostencils_tpu.config import enable_persistent_compilation_cache
+    enable_persistent_compilation_cache()
     from evostencils_tpu.optimization.program import Optimizer
     from evostencils_tpu.evaluation.evaluator import CycleEvaluator
 

@@ -27,6 +27,8 @@ def main():
 
     import numpy as np
     from optimize import get_problem
+    from evostencils_tpu.config import enable_persistent_compilation_cache
+    enable_persistent_compilation_cache()
     from evostencils_tpu.compiler.cycles import v_cycle
     from evostencils_tpu.compiler.lower import lower_cycle
     from evostencils_tpu.compiler.solve import measure_solve

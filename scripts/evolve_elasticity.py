@@ -1,4 +1,4 @@
-"""Linear-elasticity evolution campaign (VERDICT r4 next-step #6a): the
+"""Linear-elasticity evolution campaign: the
 block-shape terminals and collective block-Jacobi smoothers finally get
 evolutionary exercise (reference grammar/multigrid.py:388-407; papers
 campaign on LinearElasticity).
@@ -25,7 +25,7 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-CKPT_DIR = "/root/repo/.evolve_elasticity_ckpt"
+CKPT_DIR = str(pathlib.Path(__file__).resolve().parents[1] / ".evolve_elasticity_ckpt")
 
 
 def main():
@@ -43,8 +43,8 @@ def main():
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from evostencils_tpu.config import enable_persistent_compilation_cache
+    enable_persistent_compilation_cache()
     print(f"[evolve-el] device: {jax.devices()[0]}", file=sys.stderr,
           flush=True)
 

@@ -1,5 +1,4 @@
-"""First nonlinear evolution campaign: evolve FAS cycles (VERDICT r4
-next-step #5 — the reference built exastencils_FAS.py:11-447 precisely
+"""First nonlinear evolution campaign: evolve FAS cycles (the reference built exastencils_FAS.py:11-447 precisely
 to evaluate evolved nonlinear cycles; its hand-tuned configuration is
 the damped Newton-Jacobi 0.8 FAS V(2,2), FAS_2D_Basic_template.exa4:26-34).
 
@@ -12,7 +11,7 @@ grammar/seeds.fas_v_cycle_string; offspring prescreened on a 127^2
 instance of the same 4-level grammar.
 
 XLA-CPU exhausts LLVM JIT section memory after ~7 generations per
-process (BASELINE.md round 4) — run under a checkpoint-resume restart
+process — run under a checkpoint-resume restart
 loop:
 
     for i in $(seq 1 8); do
@@ -31,7 +30,7 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-CKPT_DIR = "/root/repo/.evolve_fas_ckpt"
+CKPT_DIR = str(pathlib.Path(__file__).resolve().parents[1] / ".evolve_fas_ckpt")
 
 
 def main():
@@ -49,8 +48,8 @@ def main():
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from evostencils_tpu.config import enable_persistent_compilation_cache
+    enable_persistent_compilation_cache()
     print(f"[evolve-fas] device: {jax.devices()[0]}", file=sys.stderr,
           flush=True)
 

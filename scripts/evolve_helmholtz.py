@@ -26,7 +26,7 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-CKPT_DIR = "/root/repo/.evolve_helmholtz_ckpt"
+CKPT_DIR = str(pathlib.Path(__file__).resolve().parents[1] / ".evolve_helmholtz_ckpt")
 
 
 def main():
@@ -44,8 +44,8 @@ def main():
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from evostencils_tpu.config import enable_persistent_compilation_cache
+    enable_persistent_compilation_cache()
     print(f"[evolve-hh] device: {jax.devices()[0]}", file=sys.stderr,
           flush=True)
 

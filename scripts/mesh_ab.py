@@ -3,12 +3,12 @@
 Round-1 review asked for the cost of the GSPMD fallback that
 variable-coefficient / complex / system smoothers used to take under a
 mesh (the halo pipeline now covers them — parallel/halo.sweep_var,
-sweep_sys, complex sweep).  Only one real TPU chip is reachable here, so
-this measures on the virtual 8-device CPU mesh (the same mechanism the
-test suite and the driver's multichip dryrun use).  Absolute times are
-CPU times; the quantity of interest is the RATIO pipeline/GSPMD per
-smoother family and the communication structure (ppermute ring vs
-XLA-inserted collectives), which carries over to ICI.
+sweep_sys, complex sweep).  This measures on the virtual 8-device CPU
+mesh (the same mechanism the test suite and __graft_entry__'s multichip
+dryrun use).  Absolute times are CPU times; the quantity of interest is
+the RATIO pipeline/GSPMD per smoother family and the communication
+structure (ppermute ring vs XLA-inserted collectives); NVLink numbers
+come from chip_smoke.py --four on real cards.
 
 Run: JAX_PLATFORMS=cpu python scripts/mesh_ab.py
 """
@@ -48,11 +48,13 @@ def main():
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
+    from evostencils_tpu.config import enable_persistent_compilation_cache
     from evostencils_tpu.parallel.mesh import make_mesh, grid_sharding
     from evostencils_tpu.parallel import halo
     from evostencils_tpu.problems.poisson import poisson_2d
-    from evostencils_tpu.ops.pallas.rbgs import five_point_values
+    from evostencils_tpu.ops.stencil_values import five_point_values
 
+    enable_persistent_compilation_cache()
     assert len(jax.devices()) >= 8, "need 8 virtual devices"
     mesh = make_mesh(jax.devices()[:8], mesh_shape=(4, 2),
                      axis_names=("x", "y"))

@@ -3,7 +3,7 @@
 The radius-1 three-tap banded forms (ops/apply.axis_restrict_3tap /
 axis_prolong_3tap) must reproduce the `_restriction_axis_matrix` /
 `_prolongation_axis_matrix` contractions exactly — they replace an
-O(nc*nf)-FLOP MXU contraction per axis with strided slices at fine levels.
+O(nc*nf)-FLOP contraction per axis with strided slices at fine levels.
 """
 
 import numpy as np

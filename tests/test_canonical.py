@@ -1,4 +1,4 @@
-"""Structure canonicalization (VERDICT r4 next-step #7): zero-omega
+"""Structure canonicalization: zero-omega
 sweep padding makes sweep count a traced value — padded programs are
 exact, and individuals differing only in sweep counts share one
 compiled program."""

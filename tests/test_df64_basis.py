@@ -1,4 +1,4 @@
-"""Full-df64-recurrence split BiCGStab (VERDICT r4 next-step #2): the
+"""Full-df64-recurrence split BiCGStab: the
 Krylov basis, dots, scalars and matvec carried as double-float words
 reach TRUE 1e-7 on f32 arithmetic where the f32-basis recurrence walls
 (reference bar: the all-f64 C++ protocol,

@@ -1,5 +1,6 @@
 """Linear elasticity block-system tests (SURVEY §2.1 system IR + coupled
-smoothers; BASELINE.md: RB-GS omega=1.25 V(2,1) to 1e-12)."""
+smoothers; PERF.md reference targets: RB-GS omega=1.25 V(2,1) to
+1e-12)."""
 
 import numpy as np
 import pytest

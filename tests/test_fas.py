@@ -1,5 +1,5 @@
-"""FAS nonlinear multigrid tests (BASELINE.md row 5: -Lap u + 20 e^u u = f,
-1e-10 target, damped Newton-Jacobi 0.8)."""
+"""FAS nonlinear multigrid tests (PERF.md reference targets:
+-Lap u + 20 e^u u = f, 1e-10 target, damped Newton-Jacobi 0.8)."""
 
 import numpy as np
 import pytest

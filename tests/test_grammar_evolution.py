@@ -174,10 +174,10 @@ class TestEvaluator:
 
 
 class TestEvolution:
-    def test_small_sogp_run_improves(self):
+    def test_small_sogp_run_improves(self, tmp_path):
         problem = poisson_2d(max_level=3, min_level=2)
         opt = Optimizer(problem, rng=random.Random(0),
-                        checkpoint_directory_path="/tmp/es_ckpt_test")
+                        checkpoint_directory_path=str(tmp_path))
         pset, _ = build_pset(problem)
         pop, log, hof, _, _ = opt.SOGP(
             pset=pset, initial_population_size=8, generations=3, mu_=4,
@@ -186,10 +186,10 @@ class TestEvolution:
         best = hof[0]
         assert best.fitness.values[0] < opt.infinity
 
-    def test_small_nsga2_run(self):
+    def test_small_nsga2_run(self, tmp_path):
         problem = poisson_2d(max_level=3, min_level=2)
         opt = Optimizer(problem, rng=random.Random(1),
-                        checkpoint_directory_path="/tmp/es_ckpt_test2")
+                        checkpoint_directory_path=str(tmp_path))
         pset, _ = build_pset(problem)
         pop, log, hof, _, _ = opt.NSGAII(
             pset=pset, initial_population_size=8, generations=3, mu_=4,
@@ -197,10 +197,10 @@ class TestEvolution:
         assert len(pop) == 4
         assert len(hof) >= 1
 
-    def test_evolutionary_optimization_end_to_end(self):
+    def test_evolutionary_optimization_end_to_end(self, tmp_path):
         problem = small_problem()
         opt = Optimizer(problem, rng=random.Random(2),
-                        checkpoint_directory_path="/tmp/es_ckpt_test3")
+                        checkpoint_directory_path=str(tmp_path))
         result = opt.evolutionary_optimization(
             mu_=4, lambda_=4, population_initialization_factor=2,
             generations=2, verbose=False)
@@ -210,12 +210,12 @@ class TestEvolution:
             result["grammar_string"])
         assert res.convergence_factor < opt.infinity
 
-    def test_checkpoint_roundtrip(self):
+    def test_checkpoint_roundtrip(self, tmp_path):
         import os
         from evostencils_tpu.optimization.program import (
             load_checkpoint_from_file)
         problem = small_problem()
-        path = "/tmp/es_ckpt_test4"
+        path = str(tmp_path)
         opt = Optimizer(problem, rng=random.Random(3),
                         checkpoint_directory_path=path)
         pset, _ = build_pset(problem)

@@ -28,7 +28,7 @@ def mesh():
 
 
 def _five_point(st):
-    from evostencils_tpu.ops.pallas.rbgs import five_point_values
+    from evostencils_tpu.ops.stencil_values import five_point_values
     return five_point_values(st)
 
 
@@ -113,7 +113,7 @@ def test_sharded_3d_sweep_matches_reference(mesh):
     """3D 7-point sweeps shard the first two grid axes over the mesh
     (last axis local) and must match the single-device masked math."""
     from evostencils_tpu.problems.poisson import poisson_3d
-    from evostencils_tpu.ops.pallas.rbgs3d import seven_point_values
+    from evostencils_tpu.ops.stencil_values import seven_point_values
 
     problem = poisson_3d(max_level=5, min_level=2)
     st = problem.level_contexts[0].operator.entries[0][0].generate_stencil()
@@ -251,7 +251,7 @@ def test_sharded_var_sweep_matches_reference(mesh):
 def test_sharded_sys_sweep_matches_reference(mesh):
     """Coupled FxF 9-point sweeps (elasticity): corner couplings need the
     two-phase ghost-ring exchange."""
-    from evostencils_tpu.ops.pallas.rbgs_sys import NINE_OFFSETS
+    from evostencils_tpu.ops.stencil_values import NINE_OFFSETS
     rng = np.random.default_rng(9)
     n = 2 ** 6 - 1
     # 2x2 system with full 9-point entries, diagonally dominant centers

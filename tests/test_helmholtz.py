@@ -1,5 +1,5 @@
 """Helmholtz tests: complex dtype, Robin BC folding, shifted-Laplace MG
-preconditioner inside BiCGStab (BASELINE.md row 4)."""
+preconditioner inside BiCGStab (PERF.md reference targets)."""
 
 import numpy as np
 import pytest

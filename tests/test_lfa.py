@@ -10,7 +10,7 @@ from evostencils_tpu.compiler.solve import measure_solve
 from evostencils_tpu.ir import base, partitioning as part, smoother
 from evostencils_tpu.prediction.convergence import ConvergenceEvaluator
 from evostencils_tpu.prediction.performance import (PerformanceEvaluator,
-                                                    REFERENCE_CPU, TPU_V5E)
+                                                    REFERENCE_CPU, H100_SXM)
 from evostencils_tpu.problems.poisson import poisson_2d, poisson_3d
 
 
@@ -120,12 +120,12 @@ class TestPerformanceModel:
         assert t_s > 0
         assert t_b > 10 * t_s  # 16x the points
 
-    def test_tpu_faster_than_reference_cpu(self):
+    def test_h100_faster_than_reference_cpu(self):
         problem = poisson_2d(max_level=7, min_level=3)
         cycle = build_cycle(problem)
         t_cpu = PerformanceEvaluator(REFERENCE_CPU).estimate_runtime(cycle)
-        t_tpu = PerformanceEvaluator(TPU_V5E).estimate_runtime(cycle)
-        assert t_tpu < t_cpu / 10
+        t_gpu = PerformanceEvaluator(H100_SXM).estimate_runtime(cycle)
+        assert t_gpu < t_cpu / 10
 
 
 class TestModelBasedFitness:
@@ -152,14 +152,14 @@ class TestModelBasedFitness:
 
 
 class TestModelBasedOptimizer:
-    def test_model_based_evolution_runs(self):
+    def test_model_based_evolution_runs(self, tmp_path):
         import random
         from evostencils_tpu.optimization.program import Optimizer
         from evostencils_tpu.grammar.multigrid import generate_primitive_set
         problem = poisson_2d(max_level=5, min_level=3)
         opt = Optimizer(problem, model_based_estimation=True,
                         rng=random.Random(0),
-                        checkpoint_directory_path="/tmp/es_mb_test")
+                        checkpoint_directory_path=str(tmp_path))
         pset, _ = generate_primitive_set(
             problem.approximation, problem.rhs_entity,
             problem.level_contexts, problem.coarsest_operator)

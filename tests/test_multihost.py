@@ -72,7 +72,8 @@ class TestJaxProcessCommunicator:
             assert r["bcast"] == "from-1"
             assert r["reassembled"] == list(range(7))
 
-    def test_two_rank_evolution_matches_single_process(self, worker_results):
+    def test_two_rank_evolution_matches_single_process(self, worker_results,
+                                                         tmp_path):
         r0, r1 = sorted(worker_results, key=lambda r: r["rank"])
         # ranks agree with each other (replicated-population contract)
         assert r0["best"] == r1["best"]
@@ -85,7 +86,7 @@ class TestJaxProcessCommunicator:
             problem.level_contexts, problem.coarsest_operator)
         opt = Optimizer(problem, rng=random.Random(123),
                         model_based_estimation=True,
-                        checkpoint_directory_path="/tmp/es_mh_solo")
+                        checkpoint_directory_path=str(tmp_path))
         pop, log, hof, _, _ = opt.NSGAII(
             pset=pset, initial_population_size=8, generations=2, mu_=4,
             lambda_=4, min_level=2, max_level=3, verbose=False)

@@ -1,4 +1,4 @@
-"""Packaging parity (VERDICT r4 next-step #9): the reference is
+"""Packaging parity: the reference is
 pip-installable (reference setup.py:1-12); this repo ships
 pyproject.toml + console-script entry points."""
 

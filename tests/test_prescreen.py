@@ -85,14 +85,14 @@ def test_prescreen_detaches_on_incompatible_pset():
     assert pre.screen(inds, pset_full) == [None, None, None]
 
 
-def test_optimizer_with_prescreen_runs_and_skips_compiles():
+def test_optimizer_with_prescreen_runs_and_skips_compiles(tmp_path):
     full = poisson_2d(max_level=6, min_level=2)
     small = poisson_2d(max_level=5, min_level=1)
     pre = SmallGridPrescreen(small, rho_cap=0.9)
     evaluator = CycleEvaluator(full)
     opt = Optimizer(full, evaluator=evaluator, rng=random.Random(11),
                     prescreen=pre,
-                    checkpoint_directory_path="/tmp/test_prescreen_ckpt")
+                    checkpoint_directory_path=str(tmp_path))
     result = opt.evolutionary_optimization(
         mu_=4, lambda_=4, population_initialization_factor=2,
         generations=2, verbose=False)

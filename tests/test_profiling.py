@@ -9,6 +9,7 @@ from evostencils_tpu.problems.poisson import poisson_2d
 from evostencils_tpu.compiler.cycles import v_cycle
 from evostencils_tpu.compiler.lower import lower_cycle
 from evostencils_tpu.ir import partitioning as part
+from evostencils_tpu.prediction.performance import H100_SXM
 
 
 def _lowered(max_level=6, min_level=4):
@@ -37,6 +38,6 @@ def test_benchmark_and_roofline():
     lowered, u0, b, om = _lowered()
     t = benchmark(lowered.step, u0, b, om, iterations=3, warmup=1)
     assert t > 0
-    rep = roofline_report(lowered, u0, b, om, iterations=3)
+    rep = roofline_report(lowered, u0, b, om, machine=H100_SXM, iterations=3)
     assert rep.measured_s > 0 and rep.model_s > 0
     assert rep.efficiency > 0

@@ -1,10 +1,10 @@
 """df64 arithmetic + double-float iterative refinement.
 
-Validates the TPU deep-convergence path (compiler/refine.py): the f32
+Validates the deep-convergence path (compiler/refine.py): the f32
 multigrid cycle plus df64 residual/solution words must reach the
 reference's 1e-12 (linear) / 1e-10 (FAS) relative-residual targets with
 f32-only device arithmetic — here exercised on CPU with f32 arrays, the
-exact dtype mix the TPU runs.
+dtype mix the device runs.
 """
 
 import numpy as np
@@ -124,8 +124,8 @@ class TestRefinedSolve:
         assert rel < 1e-10
 
     def test_poisson_to_1e12_with_bf16_cycles(self):
-        # mixed-precision multigrid: bf16 correction cycles (half the HBM
-        # traffic of f32 on TPU) under the df64 outer loop still reach
+        # mixed-precision multigrid: bf16 correction cycles (half the
+        # memory traffic of f32) under the df64 outer loop still reach
         # 1e-12 — per-outer-step reduction floors at ~eps(bf16)=2^-8, so
         # more outer steps, each far cheaper
         problem = poisson_2d(max_level=6, min_level=3)

@@ -11,16 +11,16 @@ from evostencils_tpu.problems.poisson import poisson_2d
 from evostencils_tpu.optimization.program import Optimizer
 
 
-def test_robustness_worsens_or_keeps_fitness():
+def test_robustness_worsens_or_keeps_fitness(tmp_path):
     base = poisson_2d(max_level=5, min_level=4)
     # variant: the same problem one level deeper — strictly harder to hit
     # the same reduction, never easier
     variant = poisson_2d(max_level=5, min_level=4)
-    opt_plain = Optimizer(base, checkpoint_directory_path="/tmp/rb1",
+    opt_plain = Optimizer(base, checkpoint_directory_path=str(tmp_path / "1"),
                           rng=random.Random(5))
     opt_robust = Optimizer(poisson_2d(max_level=5, min_level=4),
                            robustness_problems=[variant],
-                           checkpoint_directory_path="/tmp/rb2",
+                           checkpoint_directory_path=str(tmp_path / "2"),
                            rng=random.Random(5))
     r1 = opt_plain.evolutionary_optimization(mu_=4, lambda_=4, generations=2,
                                              verbose=False)
@@ -35,12 +35,12 @@ def test_robustness_worsens_or_keeps_fitness():
     assert all(np.isfinite(v) for v in v2)
 
 
-def test_helmholtz_k_doubling_variants_build():
+def test_helmholtz_k_doubling_variants_build(tmp_path):
     base = helmholtz_2d(max_level=5, min_level=3)
     variants = [helmholtz_2d(max_level=5, min_level=3, k=2 * K_DEFAULT),
                 helmholtz_2d(max_level=5, min_level=3, k=4 * K_DEFAULT)]
     opt = Optimizer(base, robustness_problems=variants,
-                    checkpoint_directory_path="/tmp/rb3",
+                    checkpoint_directory_path=str(tmp_path / "3"),
                     rng=random.Random(11))
     r = opt.evolutionary_optimization(mu_=4, lambda_=4, generations=1,
                                       verbose=False)
@@ -49,7 +49,7 @@ def test_helmholtz_k_doubling_variants_build():
     assert len(opt._robustness) == 2
 
 
-def test_chunked_run_keeps_robustness_variants():
+def test_chunked_run_keeps_robustness_variants(tmp_path):
     """Round-1 gap: levels_per_run < total levels silently dropped the
     robustness variants.  Chunked runs now keep a per-variant chain of
     finished-chunk cycles and evaluate every chunk's candidates against
@@ -57,7 +57,7 @@ def test_chunked_run_keeps_robustness_variants():
     base = poisson_2d(max_level=4, min_level=1)
     variant = poisson_2d(max_level=4, min_level=1)
     opt = Optimizer(base, robustness_problems=[variant],
-                    checkpoint_directory_path="/tmp/rb4",
+                    checkpoint_directory_path=str(tmp_path / "4"),
                     rng=random.Random(13))
     seen = []
     orig = Optimizer._apply_robustness

@@ -37,12 +37,12 @@ def test_poisson_seed_matches_reference_solver():
     assert np.isfinite(res.time_to_convergence_ms)
 
 
-def test_seeded_evolution_starts_from_seed():
+def test_seeded_evolution_starts_from_seed(tmp_path):
     import random
     from evostencils_tpu.optimization.program import Optimizer
     p = poisson_2d(max_level=6, min_level=2)
     opt = Optimizer(p, rng=random.Random(3),
-                    checkpoint_directory_path="/tmp/test_seed_ckpt")
+                    checkpoint_directory_path=str(tmp_path))
     seed = v_cycle_string(4, 6, smoother="collective_jacobi", omega=1.15)
     out = opt.evolutionary_optimization(
         mu_=4, lambda_=4, population_initialization_factor=1,

@@ -1,100 +1,81 @@
-"""sys9 fused kernels with almost-uniform row exceptions: the
-split-complex Helmholtz operator (Robin fold = constant center-coefficient
-deltas on the first/last interior row, problems/helmholtz.py
-HelmholtzOperatorGenerator) must classify as a sys9 signature with
-``exc`` fixups and the fused V-cycle step must match the generic
-lowering.  Reference behavior: the Robin ghost relation folded into the
-operator, Helmholtz/2D_FD_Helmholtz_fromL3.exa4:24-40."""
+"""Split-complex Helmholtz smoothing with the Robin fold: the 2x2 block
+operator's center coefficients differ from the interior on the first and
+last interior row (problems/helmholtz.py HelmholtzOperatorGenerator,
+reference Helmholtz/2D_FD_Helmholtz_fromL3.exa4:24-40).  The generic
+lowering applies those rows as scalar-plus-row fixups
+(ops/apply.almost_uniform_desc); its sweeps must match the numpy float64
+reference that applies the full coefficient fields."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from evostencils_tpu.compiler.cycles import v_cycle
-from evostencils_tpu.compiler.lower import lower_cycle, _smoother_sig
-from evostencils_tpu.compiler import lower as L
-from evostencils_tpu.config import config
+from evostencils_tpu.compiler.cycles import smooth
+from evostencils_tpu.compiler.lower import _stencil_field_of, lower_cycle
 from evostencils_tpu.ir import partitioning as part
-from evostencils_tpu.ir import system
+from evostencils_tpu.ops.apply import almost_uniform_desc
 from evostencils_tpu.problems.helmholtz import helmholtz_2d_split
 
-
-def _split_cycle(max_level=8, min_level=5):
-    problem = helmholtz_2d_split(max_level=max_level, min_level=min_level)
-    problem.dtype = np.float32
-    cycle = v_cycle(problem.level_contexts, problem.rhs_entity,
-                    pre_smoothing=2, post_smoothing=1, omega=0.6,
-                    partitioning=part.RedBlack,
-                    coarse_operator=problem.coarsest_operator)
-    return problem, cycle
+from . import numpy_reference as ref
 
 
-def test_split_helmholtz_classifies_as_sys9_with_exc():
-    problem, _ = _split_cycle()
-    A = problem.level_contexts[0].operator
-    Lsm = system.ElementwiseDiagonal(A)
-    sig = _smoother_sig(A, Lsm)
-    assert sig is not None and sig[0] == "sys9"
-    coeffs, kind, exc = sig[1]
-    assert kind == "elem"
-    n = problem.level_contexts[0].grid[0].size[0]
-    assert [row for row, _ in exc] == [0, n - 1]
-    # the Robin fold touches all four 2x2 block centers (complex alpha)
-    for _, dmat in exc:
-        assert all(any(v != 0.0 for v in r) for r in dmat)
+def _fields(op):
+    """Per-entry ``{offset: coefficient field}`` of the block operator."""
+    out = []
+    for row in op.entries:
+        out.append([])
+        for e in row:
+            sf = _stencil_field_of(e)
+            out[-1].append({tuple(o): np.asarray(f)
+                            for o, f in zip(sf.offsets, sf.fields)})
+    return out
 
 
-def test_split_helmholtz_super_plans_found():
-    _, cycle = _split_cycle()
-    by_smoother, by_mult = L._plan_super_fusions(cycle)
-    assert by_mult, "no sys9 super-fusion plan found for split Helmholtz"
-    assert all(p["sig"][0] == "sys9" and p["sig"][1][2]
-               for p in by_mult.values())
-    posts = L._plan_post_fusions(cycle)
-    assert posts and all(p["sig"][0] == "sys9" for p in posts.values())
+def test_robin_rows_are_exceptions():
+    problem = helmholtz_2d_split(max_level=6, min_level=3)
+    blocks = _fields(problem.level_contexts[0].operator)
+    n = problem.finest_grid[0].size[0]
+    for row in blocks:
+        for entry in row:
+            desc = almost_uniform_desc(entry[(0, 0)])
+            assert desc is not None and desc[0] == "rows"
+            assert [i for i, _ in desc[2]] == [0, n - 1]
 
 
-@pytest.mark.parametrize("partitioning", [part.RedBlack, part.Single])
-def test_split_helmholtz_fused_step_equals_generic(partitioning):
-    problem = helmholtz_2d_split(max_level=8, min_level=5)
-    problem.dtype = np.float32
-    cycle = v_cycle(problem.level_contexts, problem.rhs_entity,
-                    pre_smoothing=2, post_smoothing=1, omega=0.6,
-                    partitioning=partitioning,
-                    coarse_operator=problem.coarsest_operator)
-    lowered = lower_cycle(cycle, problem.approximation, problem.rhs_entity)
-    b = problem.build_rhs()
-    # non-trivial start so the Robin rows see a signal
-    u0 = tuple(jnp.ones_like(x) for x in b)
-    om = jnp.asarray(lowered.default_omegas, dtype=jnp.float32)
+@pytest.mark.parametrize("sweeps", [1, 2])
+@pytest.mark.parametrize("partitioning", ["rbgs", "jacobi"])
+@pytest.mark.parametrize("level", [5, 6, 7])
+def test_split_helmholtz_sweeps(level, partitioning, sweeps):
+    problem = helmholtz_2d_split(max_level=level, min_level=3)
+    ctx = problem.level_contexts[0]
+    red_black = partitioning == "rbgs"
+    omega = 0.6
+    state = (problem.approximation, problem.rhs_entity)
+    for _ in range(sweeps):
+        state = smooth(state, ctx, omega,
+                       part.RedBlack if red_black else part.Single)
+    lowered = lower_cycle(state[0], problem.approximation,
+                          problem.rhs_entity)
+    shape = tuple(problem.finest_grid[0].size)
+    rng = np.random.default_rng(level)
+    u = tuple(rng.standard_normal(shape) for _ in range(2))
+    b = tuple(rng.standard_normal(shape) for _ in range(2))
+    got = lowered.step(tuple(jnp.asarray(x) for x in u),
+                       tuple(jnp.asarray(x) for x in b),
+                       jnp.asarray(lowered.default_omegas))
 
-    from evostencils_tpu.ops.pallas import rbgs_sys
-    calls = {"n": 0}
-    orig = rbgs_sys.presmooth_residual_restrict_sys
-
-    def counting(*a, **k):
-        calls["n"] += 1
-        return orig(*a, **k)
-
-    old = config.use_pallas_kernels
-    try:
-        config.use_pallas_kernels = False
-        ref = lowered.step(u0, b, om)
-        config.use_pallas_kernels = True   # interpret mode off-TPU
-        rbgs_sys.presmooth_residual_restrict_sys = counting
-        out = lowered.step(u0, b, om)
-    finally:
-        config.use_pallas_kernels = old
-        rbgs_sys.presmooth_residual_restrict_sys = orig
-    assert calls["n"] > 0, "sys9 super kernel did not run (silent fallback)"
-    scale = max(float(jnp.abs(r).max()) for r in ref) or 1.0
-    for o, r in zip(out, ref):
-        np.testing.assert_allclose(np.asarray(o), np.asarray(r),
-                                   atol=3e-5 * scale)
-    assert float(jnp.abs(out[0]).max()) > 0
-    # the exceptional rows themselves must match (the fixup rows)
-    for o, r in zip(out, ref):
-        np.testing.assert_allclose(np.asarray(o)[0], np.asarray(r)[0],
-                                   atol=3e-5 * scale)
-        np.testing.assert_allclose(np.asarray(o)[-1], np.asarray(r)[-1],
-                                   atol=3e-5 * scale)
+    blocks = _fields(ctx.operator)
+    centers = [[blocks[i][j][(0, 0)] for j in range(2)] for i in range(2)]
+    want = u
+    for _ in range(sweeps):
+        want = ref.smooth(want, b,
+                          lambda v: ref.system_residual(blocks, v, b),
+                          ref.system_point_solve(centers, True), omega,
+                          red_black)
+    scale = max(np.max(np.abs(w)) for w in want)
+    for g, w in zip(got, want):
+        g = np.asarray(g)
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-12 * scale)
+        # the folded rows themselves
+        np.testing.assert_allclose(g[[0, -1]], w[[0, -1]], rtol=0,
+                                   atol=1e-12 * scale)
